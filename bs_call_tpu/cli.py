@@ -24,7 +24,8 @@ def _pair(s: str):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="bs_call",
-        description="TPU-native bisulfite variant + methylation caller "
+        description="Bisulfite variant + methylation caller with a GPU "
+        "device tier "
         "(bs_call v%s capability parity)" % C.VERSION,
     )
     p.add_argument("input_file", nargs="?", help="SAM/BAM input (sorted)")
@@ -68,14 +69,16 @@ def build_parser() -> argparse.ArgumentParser:
     # Engine
     p.add_argument(
         "--device",
-        choices=["auto", "tpu", "cpu", "numpy"],
+        choices=["auto", "gpu", "cpu", "numpy"],
         default="auto",
-        help="compute backend for the genotype kernel",
+        help="compute backend for the genotype model: gpu runs it on the "
+        "first GPU (an error when there is none); auto uses a GPU when "
+        "one is visible and a measured race picks it",
     )
     p.add_argument(
         "--no-exact",
         action="store_true",
-        help="float32 device model without the float64 pass (fastest; "
+        help="float32 model without the float64 pass (fastest; "
         "GL may differ in the last printed digit, GQ near boundaries)",
     )
     p.add_argument(
@@ -294,6 +297,13 @@ def main(argv=None):
                 write_report(f, cfg, stats, tbl, dbsnp=cfg.dbsnp_file)
         return 0
     if args.shards and args.shards > 1:
+        if cfg.device == "gpu":
+            print(
+                "--shards workers run on the host; --device gpu cannot be "
+                "combined with --shards",
+                file=sys.stderr,
+            )
+            return 1
         if not cfg.output_file:
             print("--shards requires -o", file=sys.stderr)
             return 1
@@ -351,6 +361,15 @@ def main(argv=None):
                         f, cfg, stats, tbl, dbsnp=cfg.dbsnp_file
                     )
             return 0
+    device = None
+    if cfg.device == "gpu":
+        from bs_call_tpu.utils import gpu_device
+
+        try:
+            device = gpu_device()
+        except RuntimeError as e:
+            print(f"bs_call: --device gpu: {e}", file=sys.stderr)
+            return 1
     stats = None
     if cfg.report_file:
         from bs_call_tpu.stats.collect import BsStats
@@ -359,7 +378,7 @@ def main(argv=None):
     from bs_call_tpu.pipeline.runner import run_caller
 
     try:
-        stats, table = run_caller(cfg, stats=stats)
+        stats, table = run_caller(cfg, stats=stats, device=device)
     except BrokenPipeError:
         # downstream consumer (e.g. `| head`) closed the pipe: exit
         # quietly like a SIGPIPE'd C tool; detach stdout so interpreter

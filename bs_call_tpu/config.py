@@ -37,8 +37,8 @@ class CallerConfig:
     over_conv: float = C.DEFAULT_OVER_CONVERSION
     ref_bias: float = C.DEFAULT_REF_BIAS
 
-    # engine knobs (new in the TPU framework)
-    device: str = "auto"           # "auto" | "tpu" | "cpu" | "numpy"
+    # engine knobs (not in the reference)
+    device: str = "auto"           # "auto" | "gpu" | "cpu" | "numpy"
     threads: int = 4               # calc share of -t (see input/output below)
     # -t calc,input,output explicit split (parse_args.c:144-146); when
     # None the runner derives pools from `threads` (the 4:3:3 auto-split

@@ -279,6 +279,43 @@ def encode_bam_record(rec: "BamRec") -> bytes:
     return struct.pack("<i", len(body)) + body
 
 
+def encode_record(name: str, flag: int, tid: int, pos: int, mapq: int,
+                  cigar: List[Tuple[int, int]], mtid: int, mpos: int,
+                  isize: int, seq: str, qual: Optional[np.ndarray],
+                  aux: bytes = b"") -> bytes:
+    """One BAM alignment record (block_size prefix included)."""
+    nb = name.encode() + b"\x00"
+    l_seq = len(seq)
+    nib = _CHAR2NIB_LUT[np.frombuffer(seq.encode(), dtype=np.uint8)]
+    if len(nib) % 2:
+        nib = np.append(nib, np.uint8(0))
+    seq_bytes = ((nib[0::2] << 4) | nib[1::2]).tobytes()
+    if qual is None:
+        qual_bytes = b"\xff" * l_seq
+    else:
+        qual_bytes = np.ascontiguousarray(
+            np.asarray(qual, dtype=np.uint8)
+        ).tobytes()
+    core = struct.pack(
+        "<iiBBHHHiii",
+        tid,
+        pos,
+        len(nb),
+        mapq,
+        0,
+        len(cigar),
+        flag,
+        l_seq,
+        mtid,
+        mpos,
+    ) + struct.pack("<i", isize)
+    cig = b"".join(
+        struct.pack("<I", (ln << 4) | op) for ln, op in cigar
+    )
+    rec = core + nb + cig + seq_bytes + qual_bytes + aux
+    return struct.pack("<i", len(rec)) + rec
+
+
 class BamWriter:
     """BAM writer (fixtures/utilities)."""
 
@@ -308,36 +345,14 @@ class BamWriter:
         qual: Optional[np.ndarray],
         aux: bytes = b"",
     ):
-        nb = name.encode() + b"\x00"
-        l_seq = len(seq)
-        nib = _CHAR2NIB_LUT[np.frombuffer(seq.encode(), dtype=np.uint8)]
-        if len(nib) % 2:
-            nib = np.append(nib, np.uint8(0))
-        seq_bytes = ((nib[0::2] << 4) | nib[1::2]).tobytes()
-        if qual is None:
-            qual_bytes = b"\xff" * l_seq
-        else:
-            qual_bytes = np.ascontiguousarray(
-                np.asarray(qual, dtype=np.uint8)
-            ).tobytes()
-        core = struct.pack(
-            "<iiBBHHHiii",
-            tid,
-            pos,
-            len(nb),
-            mapq,
-            0,
-            len(cigar),
-            flag,
-            l_seq,
-            mtid,
-            mpos,
-        ) + struct.pack("<i", isize)
-        cig = b"".join(
-            struct.pack("<I", (ln << 4) | op) for ln, op in cigar
-        )
-        rec = core + nb + cig + seq_bytes + qual_bytes + aux
-        self._w.write(struct.pack("<i", len(rec)) + rec)
+        self._w.write(encode_record(
+            name, flag, tid, pos, mapq, cigar, mtid, mpos, isize, seq,
+            qual, aux,
+        ))
+
+    def write_encoded(self, blob: bytes):
+        """Append records already serialized by encode_record."""
+        self._w.write(blob)
 
     def close(self):
         self._w.close()

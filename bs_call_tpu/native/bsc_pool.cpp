@@ -10,7 +10,7 @@
 // steal turns into multi-second kernel time (measured: 15s sys on a
 // 4-core VM where the pooled run spends <2s). The reference keeps
 // long-lived threads for exactly this reason (process.c:167-170,
-// call_genotypes.c:124-138); this pool is the TPU-host analogue, one
+// call_genotypes.c:124-138); this pool is the host analogue, one
 // shared pool rather than per-subsystem thread classes.
 //
 // Semantics: pool_run(n, fn) executes fn(0..n-1), caller participates,

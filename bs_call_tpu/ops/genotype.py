@@ -1,14 +1,15 @@
 """Vectorized 10-genotype bisulfite likelihood model (JAX).
 
-TPU-native re-design of the reference inner loop (genotype_model.c:44-246 and
+Device re-design of the reference inner loop (genotype_model.c:44-246 and
 call_genotypes.c:43-60): instead of one C function call per genome position,
-whole blocks of positions are evaluated as a single fused elementwise program
-on the VPU. All per-quality terms are gathers into the tables from
+whole blocks of positions are evaluated as a single fused elementwise
+program. All per-quality terms are gathers into the tables from
 `bs_call_tpu.ops.tables`; `get_Z` is closed-form, so the kernel contains no
 loops and no data-dependent control flow.
 
-dtype is parametric: float32 on TPU (fast path), float64 on CPU for the
-bit-parity oracle cross-checks.
+dtype is parametric: float32 for the --no-exact fast path, float64 for the
+exact tiers (the GPU column and fused engines, and the oracle
+cross-checks); float64 needs jax_enable_x64.
 """
 
 from __future__ import annotations

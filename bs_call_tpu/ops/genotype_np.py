@@ -1,7 +1,7 @@
 """Vectorized float64 genotype model (NumPy).
 
 Same math as ops/genotype.py but in NumPy float64: the middle tier of the
-three-tier exactness scheme (TPU float32 kernel -> batched float64 rescue
+three-tier exactness scheme (float32 kernel -> batched float64 rescue
 for boundary-flagged positions -> scalar libm oracle for true ties). Keeps
 the rescue cost O(vector ops) instead of O(Python loop).
 """

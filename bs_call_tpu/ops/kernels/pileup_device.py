@@ -1,6 +1,6 @@
 """Device-side pileup build + fused pileup->genotype step.
 
-TPU-native re-design of the reference's pileup accumulation
+Device re-design of the reference's pileup accumulation
 (call_genotypes.c:180-226) for co-located deployments: instead of building
 `counts2/qual_sum/mapq2_sum` on the host and shipping pileup COLUMNS to the
 device, the (much smaller) normalized READ batch crosses the boundary once
@@ -18,8 +18,12 @@ Read batch layout (padded, fixed shape => one compiled executable):
     mapq    [R]    int32
 Padding rows use starts < 0 so every byte lands in the dump segment.
 
-The f32 sums accumulate in flattened (read, base) order — the same order
-as the C loop — via sorted segment ids; counts are integer-exact.
+Counts are integer-exact. The f32 qual sums add integers below 64, so
+they are exact in any accumulation order below 2^24. The mapq^2 sums
+(3,600 per read at MAPQ 60) leave f32's exact-integer range past 2^24,
+about 4,660 reads at one position; there GPU scatter-add order makes them
+vary from run to run, so the fused tier does not use them (MQ comes from
+the host pileup).
 """
 
 from __future__ import annotations
@@ -129,48 +133,54 @@ def _agg_quals_f32(counts, qual_sum):
     ).astype(jnp.int32)
 
 
+def _model_f64(counts2, qual_sum, ref_codes, params):
+    from bs_call_tpu.ops.genotype import call_genotypes
+
+    counts = counts2.sum(axis=1)
+    quals = _agg_quals_f32(counts, qual_sum)
+    gt_prob, max_gt, margin, off = call_genotypes(
+        counts, quals, ref_codes, params, dtype=jnp.float64
+    )
+    return gt_prob, max_gt, margin, off, quals.astype(jnp.uint8)
+
+
 @functools.partial(
     jax.jit, static_argnames=("n_pos", "min_qual", "params")
 )
-def fused_ll_dd(rd, starts, ori, strand, mapq, ref_codes, n_pos: int,
-                min_qual: int, params):
+def fused_ll_f64(rd, starts, ori, strand, mapq, ref_codes, n_pos: int,
+                 min_qual: int, params):
     """Fused exact tier, single device: read batch -> pileup scatter-add
-    -> f32 aggregation -> df32 (double-float32) 10-genotype model, one
-    compiled program. Only read bytes cross H2D; D2H is the dd ll planes
-    plus the uint8 quals (the host compares them against its own C++
-    aggregate and rescues any f32-boundary mismatch through the f64
-    engine, so output bytes never depend on device float behavior).
-    Replaces the pileup + calc_gt_prob hot loops
-    (call_genotypes.c:180-226, genotype_model.c:44-246) on device."""
-    from bs_call_tpu.ops.genotype_dd import genotype_ll_dd
-
+    -> f32 aggregation -> float64 10-genotype model, one compiled
+    program. Only read bytes cross H2D; D2H is the model's
+    (gt_prob, max_gt, margin, off_sum) plus the uint8 quals (the host
+    compares them against its own C++ aggregate and rescues any
+    f32-boundary mismatch through the oracle, so output bytes never
+    depend on device float behavior). Replaces the pileup +
+    calc_gt_prob hot loops (call_genotypes.c:180-226,
+    genotype_model.c:44-246) on device. Needs jax_enable_x64."""
     counts2, qual_sum, _m2 = device_pileup(
         rd, starts, ori, strand, mapq, n_pos, min_qual
     )
-    counts = counts2.sum(axis=1)
-    quals = _agg_quals_f32(counts, qual_sum)
-    hi, lo = genotype_ll_dd(counts, quals, ref_codes, params)
-    return hi, lo, quals.astype(jnp.uint8)
+    return _model_f64(counts2, qual_sum, ref_codes, params)
 
 
-def sharded_fused_ll_dd(mesh, params, n_pos: int, min_qual: int):
-    """Multi-chip fused exact tier: reads are data-parallel over the
-    mesh ('pos' axis reused as the device axis), each chip builds a
+def sharded_fused_ll_f64(mesh, params, n_pos: int, min_qual: int):
+    """Multi-device fused exact tier: reads are data-parallel over the
+    mesh ('pos' axis reused as the device axis), each device builds a
     full-width partial pileup from its read shard, one psum merges the
-    integer counts and f32 qual sums over ICI, and each chip then runs
-    the dd model on its own contiguous position slab. counts are
-    integer-exact under psum; qual sums change accumulation order, which
-    the host-side quals compare absorbs (mismatches rescue to f64).
+    integer counts and f32 qual sums, and each device then runs the f64
+    model on its own contiguous position slab. The qual sums are sums
+    of small integers, exact in f32 in any order.
 
-    Returns fn(rd, starts, ori, strand, mapq, ref) -> (hi, lo, quals_u8)
-    with R % ndev == 0 and n_pos % ndev == 0."""
+    Returns fn(rd, starts, ori, strand, mapq, ref) ->
+    (gt_prob, max_gt, margin, off_sum, quals_u8) with R % ndev == 0 and
+    n_pos % ndev == 0."""
     from jax.sharding import PartitionSpec as P
-
-    from bs_call_tpu.ops.genotype_dd import genotype_ll_dd
 
     axis = mesh.axis_names[0]
     nd = mesh.devices.size
-    assert n_pos % nd == 0
+    if n_pos % nd:
+        raise ValueError(f"n_pos={n_pos} does not divide over {nd} devices")
     shard = n_pos // nd
 
     def local(rd, starts, ori, strand, mapq, ref_shard):
@@ -182,18 +192,14 @@ def sharded_fused_ll_dd(mesh, params, n_pos: int, min_qual: int):
         i = jax.lax.axis_index(axis)
         c2 = jax.lax.dynamic_slice_in_dim(counts2, i * shard, shard)
         qs = jax.lax.dynamic_slice_in_dim(qual_sum, i * shard, shard)
-        counts = c2.sum(axis=1)
-        quals = _agg_quals_f32(counts, qs)
-        hi, lo = genotype_ll_dd(counts, quals, ref_shard, params)
-        return hi, lo, quals.astype(jnp.uint8)
+        return _model_f64(c2, qs, ref_shard, params)
 
     return jax.jit(
         jax.shard_map(
             local,
             mesh=mesh,
-            in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis),
-                      P(axis)),
-            out_specs=(P(axis), P(axis), P(axis)),
+            in_specs=(P(axis),) * 6,
+            out_specs=(P(axis),) * 5,
         )
     )
 

@@ -80,9 +80,8 @@ for _g, (_ca, _cb) in _FTAB_CATS.items():
     _FTAB_MASK_B[_g, list(_cb)] = 1
 
 # mac1 minor-allele category sets per het genotype (print_vcf.c:192-212)
-# — the single Python source of truth for the emitter's numpy fallback
-# and the device emit kernel (bsc_emit.cpp's kMac is the C++ transcription
-# of the same contract)
+# — the Python source of truth for the emitter's numpy fallback
+# (bsc_emit.cpp's kMac is the C++ transcription of the same contract)
 MAC_CATS = {
     1: ((1, 5, 7), (0, 4)),
     2: ((2, 6), (0,)),
@@ -91,13 +90,6 @@ MAC_CATS = {
     6: ((3,), (1, 5)),
     8: ((3, 7), (2, 6, 4)),
 }
-MAC_MASK_A = np.zeros((10, 8), dtype=np.int32)
-MAC_MASK_B = np.zeros((10, 8), dtype=np.int32)
-MAC_VALID = np.zeros(10, dtype=bool)
-for _g, (_ca, _cb) in MAC_CATS.items():
-    MAC_MASK_A[_g, list(_ca)] = 1
-    MAC_MASK_B[_g, list(_cb)] = 1
-    MAC_VALID[_g] = True
 
 
 def fisher_tables(counts2, max_gt, fix_reference_quirks: bool = False):

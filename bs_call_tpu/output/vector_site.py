@@ -265,59 +265,6 @@ _GL_IDX_C = np.ascontiguousarray(GL_IDX, dtype=np.int32)
 _GL_LEN_C = np.ascontiguousarray(GL_LEN, dtype=np.int32)
 
 
-def _splice_dev_prep(soa, idx, counts, gt_prob, g, r, mq, fs,
-                     g1, g2, g3):
-    """Use the device emit tier's per-row prep (soa['dev_prep'],
-    engine._call_fused) for every row it certified, recomputing the
-    risk-flagged remainder through bsc_emit.cpp. The lag pipeline's
-    window codes are compared against the device's view so block-carried
-    context, stale-lookahead duplicates (print_vcf.c:540-541) and
-    rescued neighbours all rescue to the host path. Returns the
-    _native_emit_prep tuple, or None when no device prep is attached
-    (or the native library is unavailable for the rescue rows)."""
-    dev = soa.get("dev_prep")
-    n = len(idx)
-    if dev is None or n == 0:
-        return None
-    risk = dev["risk"][idx].copy()
-    gt1w = dev["gt1"]
-    g1d = np.concatenate(([0], gt1w[:-1]))[idx]
-    g3d = np.concatenate((gt1w[1:], [0]))[idx]
-    risk |= (gt1w[idx] != g2) | (g1d != g1) | (g3d != g3)
-    # the emitter's reference code is context-TRUNCATED (strncpy
-    # semantics zero it for up to 2 positions after an N,
-    # print_vcf.c:563-580) while the device used the raw code: any
-    # disagreement changes the GL layout, so those rows rescue
-    risk |= dev["ref5"][idx] != r
-    phred = dev["phred"][idx].astype(np.int64)
-    dp1 = dev["dp1"][idx].astype(np.int64)
-    qd = dev["qd"][idx].astype(np.int64)
-    fs_int = dev["fs_int"][idx].astype(np.int64)
-    flt = dev["flt"][idx].astype(np.int64)
-    mac1 = dev["mac1"][idx].astype(bool)
-    gl_vals = dev["gl_vals"][idx].astype(np.float32)
-    gl_len = dev["gl_len"][idx].astype(np.int32)
-    cg_code = dev["cg_code"][idx].astype(np.int64)
-    cond_cg = dev["cond_cg"][idx].astype(bool)
-    het = dev["het"][idx].astype(bool)
-    rows = np.nonzero(risk)[0]
-    if len(rows):
-        sub = _native_emit_prep(
-            len(rows), counts[rows], gt_prob[rows], g[rows], r[rows],
-            mq[rows], fs[rows], g1[rows], g2[rows], g3[rows],
-        )
-        if sub is None:
-            return None
-        for dst, src in zip(
-            (phred, dp1, qd, fs_int, flt, mac1, gl_vals, gl_len,
-             cg_code, cond_cg, het),
-            sub,
-        ):
-            dst[rows] = src
-    return (phred, dp1, qd, fs_int, flt, mac1, gl_vals, gl_len,
-            cg_code, cond_cg, het)
-
-
 def _native_emit_prep(n, counts, gt_prob, g, r, mq, fs, g1, g2, g3):
     """Per-row emit-field prep in C++ (bsc_emit.cpp): phred/QD/FS/filter
     bits/mac1/GL/CG codes/het with the libm the C binary links. Returns
@@ -543,13 +490,9 @@ class VectorBlockEmitter:
         g1 = g5[idx, 1]
         g2 = g5[idx, 2]
         g3 = g5[idx, 3]
-        prep = _splice_dev_prep(
-            soa, idx, counts, gt_prob, g, r, mq, fs, g1, g2, g3
+        prep = _native_emit_prep(
+            n, counts, gt_prob, g, r, mq, fs, g1, g2, g3
         )
-        if prep is None:
-            prep = _native_emit_prep(
-                n, counts, gt_prob, g, r, mq, fs, g1, g2, g3
-            )
         if prep is not None:
             (phred, dp1, qd, fs_int, flt, mac1, gl_vals, gl_len,
              cg_code, cond_cg, het_arr) = prep

@@ -9,8 +9,8 @@ couplings (SURVEY §5):
     CpG-status stencil (print_vcf.c:231-266) is correct at slab borders;
   - a psum merge of the per-shard stats histograms (the bs_stats analogue).
 
-The same step function runs on a virtual CPU mesh in tests and on a real
-TPU slice in production.
+The same step function runs on a virtual CPU mesh in tests and on several
+GPUs in production.
 """
 
 from __future__ import annotations
@@ -160,11 +160,11 @@ def shard_positions(mesh: Mesh, *arrays):
 # ---------------------------------------------------------------------------
 # Production mesh kernels (used by pipeline.engine.CallEngine)
 # ---------------------------------------------------------------------------
-# These carry the exact single-device contracts of ops.genotype.call_genotypes
-# and ops.genotype_dd.genotype_ll_dd, with the position axis sharded over the
-# mesh. The model is a pure per-position map, so the sharded program runs the
-# identical elementwise/gather graph on each slab and needs no collectives —
-# outputs are bitwise equal to the single-device kernels, which is what lets
+# This carries the exact single-device contract of ops.genotype.call_genotypes
+# with the position axis sharded over the mesh. The model is a pure
+# per-position map, so the sharded program runs the identical
+# elementwise/gather graph on each slab and needs no collectives — outputs
+# are bitwise equal to the single-device kernel, which is what lets
 # the production engine switch to the mesh whenever >1 device is present
 # without disturbing the exactness tiers (f64 rescue + scalar oracle).
 
@@ -186,26 +186,6 @@ def sharded_call_genotypes(mesh: Mesh, params, dtype):
             mesh=mesh,
             in_specs=(P(axis), P(axis), P(axis)),
             out_specs=(P(axis), P(axis), P(axis), P(axis)),
-        )
-    )
-
-
-def sharded_ll_dd(mesh: Mesh, params):
-    """jit(shard_map) of ops.genotype_dd.genotype_ll_dd over the mesh:
-    (counts, quals, ref) -> (ll_hi [B,10] f32, ll_lo [B,10] f32)."""
-    from bs_call_tpu.ops.genotype_dd import genotype_ll_dd
-
-    axis = mesh.axis_names[0]
-
-    def local(counts, quals, ref):
-        return genotype_ll_dd(counts, quals, ref, params)
-
-    return jax.jit(
-        jax.shard_map(
-            local,
-            mesh=mesh,
-            in_specs=(P(axis), P(axis), P(axis)),
-            out_specs=(P(axis), P(axis)),
         )
     )
 

@@ -24,11 +24,14 @@ from bs_call_tpu.stats.meth_profile import meth_profile
 
 
 def run_caller(cfg: CallerConfig, out_fileobj=None, stats=None, dbsnp=None,
-               tracer=None):
-    """Run the full pipeline. Returns (stats, contig_table)."""
+               tracer=None, device=None):
+    """Run the full pipeline. Returns (stats, contig_table). `device` is
+    the jax.Device of the engine's device tier (CallEngine)."""
     from bs_call_tpu.utils.trace import Tracer
 
     cfg.sanitize()
+    # before any output is opened: --device gpu without a GPU fails here
+    engine = CallEngine(cfg, device=device)
     if tracer is None:
         tracer = Tracer(enabled=cfg.verbose)
     # -t calc,input,output shares (parse_args.c:194-213): the inflate
@@ -127,7 +130,6 @@ def run_caller(cfg: CallerConfig, out_fileobj=None, stats=None, dbsnp=None,
                 bcf_writer=writer,
             )
     emitter.vector = vector_emitter
-    engine = CallEngine(cfg)
     engine.tracer = tracer  # -v: engine race decisions
     native = _try_native(
         cfg, table, reader=reader, collect_stats=stats is not None

@@ -1,4 +1,4 @@
-"""Synthetic WGBS fixture generator shared by bench.py, the driver's
+"""Synthetic WGBS fixture generator shared by bench.py, chip_smoke.py, the
 multichip dry run (__graft_entry__) and the multi-host tests.
 
 One realistic generator instead of three toy ones (VERDICT r04 item 5):
@@ -17,10 +17,12 @@ import os
 import numpy as np
 
 
-def make_wgbs_fixture(tmp, n_reads, ctg_len, seed=0, n_contigs=1):
+def make_wgbs_fixture(tmp, n_reads, ctg_len, seed=0, n_contigs=1,
+                      processes=1):
     """Write ref.fa + in.bam under `tmp`. With n_contigs > 1, n_reads
     are generated PER CONTIG (chr1..chrN, each ctg_len bp) so
-    per-contig shard workers get equal work. Returns
+    per-contig shard workers get equal work; `processes` > 1 generates
+    the contigs in that many spawned workers (same bytes). Returns
     (ref_path, bam_path, total_records)."""
     from bs_call_tpu.io.bam import BamHeader, BamWriter
 
@@ -46,13 +48,45 @@ def make_wgbs_fixture(tmp, n_reads, ctg_len, seed=0, n_contigs=1):
         ref_lens=[ctg_len] * n_contigs,
     )
     w = BamWriter(bam, hdr)
+    jobs = [
+        (c, seqs[c], n_reads, ctg_len, seed + 7919 * c)
+        for c in range(n_contigs)
+    ]
     total = 0
-    for c in range(n_contigs):
-        total += gen_contig_reads(
-            w, c, seqs[c], n_reads, ctg_len, seed + 7919 * c
-        )
+    if processes > 1 and n_contigs > 1:
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+
+        with ProcessPoolExecutor(
+            min(processes, n_contigs), mp_context=mp.get_context("spawn")
+        ) as ex:
+            for n, blob in ex.map(_encoded_contig, jobs):
+                w.write_encoded(blob)
+                total += n
+    else:
+        for job in jobs:
+            total += gen_contig_reads(w, *job)
     w.close()
     return ref, bam, total
+
+
+class _Encoded:
+    """BamWriter stand-in that serializes records into memory."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, *rec):
+        from bs_call_tpu.io.bam import encode_record
+
+        self.parts.append(encode_record(*rec))
+
+
+def _encoded_contig(job):
+    """(n_records, serialized records) for one contig (a pool job)."""
+    buf = _Encoded()
+    n = gen_contig_reads(buf, *job)
+    return n, b"".join(buf.parts)
 
 
 def gen_contig_reads(w, tid, seq, n_reads, ctg_len, seed):

@@ -1,7 +1,7 @@
-"""Fused device tier (reads cross H2D; pileup + aggregation + df32 model
-in one program): byte identity vs the host engines, mesh engagement on
-the 8-virtual-device backend, and the quals-mismatch rescue contract
-(VERDICT r2 item 1)."""
+"""Fused device tier (reads cross H2D; pileup + aggregation + f64 model
+in one program), driven on a CPU device handed to the engine: byte
+identity vs the host engines, mesh engagement on the 8-virtual-device
+backend, and the quals-mismatch rescue contract."""
 
 import io
 import tempfile
@@ -18,12 +18,11 @@ from bs_call_tpu.pipeline.runner import run_caller
 
 from test_native_pipeline import random_bam
 
-pytestmark = [
-    pytest.mark.slow,
-    pytest.mark.skipif(
-        load() is None, reason="native toolchain unavailable"
-    ),
-]
+pytestmark = pytest.mark.skipif(
+    load() is None, reason="native toolchain unavailable"
+)
+
+CPU = jax.devices("cpu")[0]
 
 
 @pytest.fixture()
@@ -50,23 +49,25 @@ def spy_engine(monkeypatch):
 
 
 def _run(bam, ref, device, **kw):
+    """VCF bytes; device="gpu" runs the device tier on the CPU device."""
     kw.setdefault("batch_positions", 1 << 12)
     cfg = CallerConfig(
         input_file=str(bam), reference_file=str(ref),
         benchmark_mode=True, device=device, all_positions=True, **kw,
     )
     buf = io.BytesIO()
-    run_caller(cfg, out_fileobj=buf)
+    run_caller(cfg, out_fileobj=buf,
+               device=CPU if device == "gpu" else None)
     return buf.getvalue()
 
 
 @pytest.mark.parametrize("seed", [3, 11])
 def test_fused_mesh_byte_identity(tmp_path, spy_engine, seed):
-    """device=tpu (forced fused) over the 8-device mesh must reproduce
+    """device=gpu (forced fused) over the 8-device mesh must reproduce
     the numpy engine's bytes exactly, with zero fused fallbacks."""
     ref, bam = random_bam(tmp_path, n_pairs=1500, seed=seed)
     want = _run(bam, ref, "numpy")
-    got = _run(bam, ref, "tpu")
+    got = _run(bam, ref, "gpu")
     assert got == want
     assert spy_engine["fused"] > 0 and spy_engine["fallback"] == 0
     # the 8-virtual-device backend must engage the sharded fused kernel
@@ -78,7 +79,7 @@ def test_fused_partial_staging_identity(tmp_path, spy_engine):
     starts in the read export); fused output must stay byte-identical."""
     ref, bam = random_bam(tmp_path, n_pairs=2500, seed=7)
     want = _run(bam, ref, "numpy", batch_positions=512)
-    got = _run(bam, ref, "tpu", batch_positions=512)
+    got = _run(bam, ref, "gpu", batch_positions=512)
     assert got == want
     assert spy_engine["fused"] > 0 and spy_engine["fallback"] == 0
 
@@ -91,7 +92,7 @@ def test_quals_mismatch_rescues_to_oracle(tmp_path):
     ref, bam = random_bam(tmp_path, n_pairs=400, seed=5)
     from bs_call_tpu.native.pipeline import NativePipeline
 
-    cfg = CallerConfig(device="tpu", batch_positions=1 << 12)
+    cfg = CallerConfig(device="gpu", batch_positions=1 << 12)
     p = NativePipeline(str(bam), cfg, np.ones(1, np.int8))
     blk = p.next_block()
     reads = p.block_reads()
@@ -106,7 +107,7 @@ def test_quals_mismatch_rescues_to_oracle(tmp_path):
     rng = np.random.default_rng(0)
     ref_codes = rng.integers(0, 5, sz).astype(np.int32)
 
-    eng = CallEngine(cfg)
+    eng = CallEngine(cfg, device=CPU)
     res = eng._call_fused(reads, 0, sz - 1, ref_codes, agg, covered)
     assert res is not None
     gt_prob, max_gt, margin, off = eng._finish_exact(
@@ -133,7 +134,7 @@ def test_fused_declines_oversize_reads(tmp_path):
     ref, bam = random_bam(tmp_path, n_pairs=50, seed=1)
     from bs_call_tpu.native.pipeline import NativePipeline
 
-    cfg = CallerConfig(device="tpu", batch_positions=1 << 12)
+    cfg = CallerConfig(device="gpu", batch_positions=1 << 12)
     p = NativePipeline(str(bam), cfg, np.ones(1, np.int8))
     blk = p.next_block()
     reads = p.block_reads()
@@ -145,22 +146,21 @@ def test_fused_declines_oversize_reads(tmp_path):
         "rd": np.zeros((len(reads["starts"]), 4096), np.uint8),
     }
     wide["rd"][:, : reads["rd"].shape[1]] = reads["rd"]
-    eng = CallEngine(cfg)
+    eng = CallEngine(cfg, device=CPU)
     ref_codes = np.ones(sz, np.int32)
     assert (
         eng._call_fused(wide, 0, sz - 1, ref_codes, blk["agg"], covered)
         is None
     )
-    assert not eng._fused_broken
 
 
 def test_auto_gate_waits_for_race(tmp_path):
-    """device=auto runs f64 until the 2M-position race; with no
-    accelerator on this host the gate stays closed."""
-    ref, bam = random_bam(tmp_path, n_pairs=100, seed=2)
+    """device=auto with a device runs f64 until RACE_AFTER positions,
+    exporting reads meanwhile; the race's verdict then decides."""
     cfg = CallerConfig(device="auto", batch_positions=1 << 12)
-    eng = CallEngine(cfg)
+    eng = CallEngine(cfg, device=CPU)
     assert not eng._fused_gate(None, 0, 0, None, None, np.arange(10))
+    assert eng._exact_engine is None and eng.wants_reads()
     eng._exact_engine = "fused"
     assert eng._fused_gate(None, 0, 0, None, None, np.arange(10))
     assert eng.wants_reads()
@@ -168,62 +168,82 @@ def test_auto_gate_waits_for_race(tmp_path):
     assert not eng.wants_reads()
 
 
-@pytest.mark.parametrize("mesh", [False, True])
-def test_emit_tier_byte_identity(tmp_path, monkeypatch, spy_engine,
-                                 mesh):
-    """BS_CALL_EMIT_TIER=1 routes emit prep through the device kernel
-    (fused_ll_emit single-device; sharded_fused_ll_emit with the
-    genotype halo when the mesh engages) with per-row host rescue; VCF
-    AND report bytes must equal the numpy engine's."""
-    import io
+def test_auto_race_picks_an_engine_and_keeps_bytes(tmp_path, monkeypatch):
+    """With the race threshold lowered, device=auto races the fused tier
+    against the host f64 engine on a real chunk, traces its verdict, and
+    the output bytes equal the host run's either way."""
+    ref, bam = random_bam(tmp_path, n_pairs=1500, seed=5)
+    want = _run(bam, ref, "cpu")
+    monkeypatch.setattr(CallEngine, "RACE_AFTER", 1)
+    seen = []
+    monkeypatch.setattr(
+        CallEngine, "_trace_decision", lambda self, m: seen.append(m)
+    )
+    cfg = CallerConfig(
+        input_file=str(bam), reference_file=str(ref), benchmark_mode=True,
+        device="auto", all_positions=True, batch_positions=1 << 12,
+    )
+    buf = io.BytesIO()
+    run_caller(cfg, out_fileobj=buf, device=CPU)
+    assert buf.getvalue() == want
+    assert any(m.startswith("exact engine: ") for m in seen)
 
+
+@pytest.mark.parametrize("seed", [21, 22, 23])
+def test_fused_matches_host_native(tmp_path, spy_engine, seed):
+    """The single-device fused f64 tier against the host native f64
+    engine (--device cpu): byte-identical VCFs."""
+    ref, bam = random_bam(tmp_path, n_pairs=1200, seed=seed)
+    want = _run(bam, ref, "cpu")
+    got = _run(bam, ref, "gpu", use_mesh=False)
+    assert got == want
+    assert spy_engine["fused"] > 0 and spy_engine["mesh"] == 0
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+def test_cpu_device_engine_matches_host(tmp_path, spy_engine, mesh):
+    """An engine handed a CPU device, exact mode, single device and over
+    the 8-device mesh: VCF AND report bytes equal to the host run's."""
     from bs_call_tpu.stats.collect import BsStats
     from bs_call_tpu.stats.report import write_report
 
     def run_with_report(device, **kw):
-        kw.setdefault("batch_positions", 1 << 12)
         cfg = CallerConfig(
             input_file=str(bam), reference_file=str(ref),
             benchmark_mode=True, device=device, all_positions=True,
-            report_file="x.json", **kw,
+            report_file="x.json", batch_positions=1 << 12, **kw,
         )
         buf = io.BytesIO()
-        stats = BsStats()
-        stats, table = run_caller(cfg, out_fileobj=buf, stats=stats)
+        stats, table = run_caller(
+            cfg, out_fileobj=buf, stats=BsStats(),
+            device=CPU if device == "gpu" else None,
+        )
         rep = io.StringIO()
         write_report(rep, cfg, stats, table)
         return buf.getvalue(), rep.getvalue()
 
-    ref, bam = random_bam(tmp_path, n_pairs=1500, seed=13)
-    want, want_rep = run_with_report("numpy")
-
-    import bs_call_tpu.output.vector_site as vs
-
-    hits = {"n": 0}
-    orig = vs._splice_dev_prep
-
-    def spy(*a, **k):
-        r = orig(*a, **k)
-        if r is not None:
-            hits["n"] += 1
-        return r
-
-    monkeypatch.setattr(vs, "_splice_dev_prep", spy)
-    monkeypatch.setenv("BS_CALL_EMIT_TIER", "1")
-    got, got_rep = run_with_report("tpu", use_mesh=mesh)
-    assert got == want
-    assert hits["n"] > 0, "device emit prep never engaged"
-    assert got_rep == want_rep
-    if mesh:
-        assert spy_engine["mesh"] > 0, "mesh never engaged"
+    ref, bam = random_bam(tmp_path, n_pairs=1500, seed=31)
+    want = run_with_report("cpu")
+    assert run_with_report("gpu", use_mesh=mesh) == want
+    assert spy_engine["fused"] > 0 and (spy_engine["mesh"] > 0) == mesh
 
 
-def test_emit_tier_reference_with_N(tmp_path, monkeypatch):
-    """The emitter's reference code is context-TRUNCATED after an N
-    (strncpy semantics, print_vcf.c:563-580) while the device kernel
-    uses raw codes — those rows must rescue to the host, keeping bytes
-    identical on N-holed references (found by review: unflagged GL
-    layout divergence)."""
+def test_no_exact_cpu_device_within_tolerance(tmp_path):
+    """--no-exact on a CPU device against --device cpu, within
+    utils/vcfcmp.py's stated f32 tolerance."""
+    from bs_call_tpu.utils import vcfcmp
+
+    ref, bam = random_bam(tmp_path, n_pairs=3000, seed=41)
+    want = _run(bam, ref, "cpu").decode()
+    got = _run(bam, ref, "gpu", exact=False).decode()
+    cmp = vcfcmp.compare(got, want)
+    assert cmp["ok"], cmp
+
+
+def test_fused_reference_with_N(tmp_path):
+    """An N-holed reference (the emitter truncates its context after an
+    N, print_vcf.c:563-580, while the device sees raw codes): fused
+    output stays byte-identical."""
     import io
 
     import numpy as np
@@ -261,6 +281,5 @@ def test_emit_tier_reference_with_N(tmp_path, monkeypatch):
         k += 1
     w.close()
     want = _run(bam, ref, "numpy")
-    monkeypatch.setenv("BS_CALL_EMIT_TIER", "1")
-    got = _run(bam, ref, "tpu", use_mesh=False)
+    got = _run(bam, ref, "gpu", use_mesh=False)
     assert got == want

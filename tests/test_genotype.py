@@ -163,13 +163,13 @@ def _edge_batch():
 
 
 def test_adversarial_edges_all_tiers():
-    from bs_call_tpu.ops.genotype_dd import call_genotypes_dd
+    from bs_call_tpu.ops.genotype_native import native_model
     from bs_call_tpu.ops.genotype_np import call_genotypes_np
 
     counts, quals, ref = _edge_batch()
     want_prob, want_gt = oracle_batch(counts, quals, ref)
 
-    # tier 1: f64 XLA kernel
+    # tier 1: f64 XLA kernel (the GPU exact engine)
     gp, mg, margin, _ = call_genotypes(
         counts, quals, ref, PARAMS, dtype=jnp.float64
     )
@@ -190,8 +190,11 @@ def test_adversarial_edges_all_tiers():
         gp2[clear2], want_prob[clear2], rtol=1e-9, atol=1e-9
     )
 
-    # tier 3: df32 (the TPU exact engine)
-    gp3, mg3, margin3, _ = call_genotypes_dd(counts, quals, ref, PARAMS)
+    # tier 3: native C++ f64 (the host exact engine)
+    m = native_model(0.01, 0.05, 2.0)
+    if m is None:
+        pytest.skip("native toolchain unavailable")
+    gp3, mg3, margin3, _ = m.call(counts, quals, ref)
     clear3 = (margin3 > 1e-9) & clear2
     np.testing.assert_array_equal(mg3[clear3], want_gt[clear3])
     assert np.abs(gp3 - gp2).max() < 1e-8

@@ -17,7 +17,6 @@ from bs_call_tpu.parallel.sharding import (
     make_mesh,
     shard_positions,
     sharded_call_genotypes,
-    sharded_ll_dd,
     usable_device_count,
 )
 from bs_call_tpu.pipeline.engine import CallEngine
@@ -56,21 +55,6 @@ def test_sharded_kernel_bitwise(batch, dtype):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
-def test_sharded_dd_bitwise(batch):
-    from bs_call_tpu.ops.genotype_dd import genotype_ll_dd
-
-    counts, quals, ref = batch
-    params = ModelParams()
-    mesh = make_mesh(8)
-    fn = sharded_ll_dd(mesh, params)
-    hi, lo = fn(*shard_positions(mesh, counts, quals, ref))
-    whi, wlo = genotype_ll_dd(
-        jnp.asarray(counts), jnp.asarray(quals), jnp.asarray(ref), params
-    )
-    np.testing.assert_array_equal(np.asarray(hi), np.asarray(whi))
-    np.testing.assert_array_equal(np.asarray(lo), np.asarray(wlo))
-
-
 def test_engine_mesh_vs_single(batch):
     """CallEngine with the mesh enabled (8 virtual devices) must produce
     bitwise-identical calls to the mesh-disabled engine, exact mode."""
@@ -84,6 +68,29 @@ def test_engine_mesh_vs_single(batch):
     assert any(v is not None for v in em._sharded.values())
     for a, b in zip(rm, rs):
         np.testing.assert_array_equal(a, b)
+
+
+def test_engine_column_f64_through_mesh(batch):
+    """device=gpu exact mode's column engine (the f64 kernel on the
+    handed device) shards over the 8-device mesh: bitwise equal to the
+    single-device engine, and equal to the host f64 engine's calls."""
+    counts, quals, ref = batch
+    cpu = jax.devices("cpu")[0]
+    em = CallEngine(CallerConfig(device="gpu", batch_positions=1 << 10),
+                    device=cpu)
+    es = CallEngine(CallerConfig(device="gpu", batch_positions=1 << 10,
+                                 use_mesh=False), device=cpu)
+    rm = em._call_batch(counts, quals, ref)
+    rs = es._call_batch(counts, quals, ref)
+    assert em._sharded.get(("f64", "cpu")) is not None
+    assert es._sharded.get(("f64", "cpu")) is None
+    for a, b in zip(rm, rs):
+        np.testing.assert_array_equal(a, b)
+    host = CallEngine(CallerConfig(device="numpy"))._call_batch(
+        counts, quals, ref
+    )
+    np.testing.assert_array_equal(rm[1], host[1])
+    np.testing.assert_allclose(rm[0], host[0], rtol=1e-12, atol=1e-12)
 
 
 def test_golden_through_mesh():
