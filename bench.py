@@ -97,12 +97,6 @@ def _make_e2e_fixture(tmp, n_reads, ctg_len, seed=0, n_contigs=1):
     )
 
 
-def _gen_contig_reads(w, tid, seq, n_reads, ctg_len, seed):
-    from bs_call_tpu.utils.synth import gen_contig_reads
-
-    return gen_contig_reads(w, tid, seq, n_reads, ctg_len, seed)
-
-
 def bench_end_to_end(n_reads=30000, ctg_len=300_000, runs=3):
     """Full pipeline reads/s (exact mode, the production/parity mode,
     default --device auto) on a realistic WGBS fixture (paired+overlapping

@@ -361,24 +361,20 @@ def main(argv=None):
                         f, cfg, stats, tbl, dbsnp=cfg.dbsnp_file
                     )
             return 0
-    device = None
-    if cfg.device == "gpu":
-        from bs_call_tpu.utils import gpu_device
-
-        try:
-            device = gpu_device()
-        except RuntimeError as e:
-            print(f"bs_call: --device gpu: {e}", file=sys.stderr)
-            return 1
     stats = None
     if cfg.report_file:
         from bs_call_tpu.stats.collect import BsStats
 
         stats = BsStats()
     from bs_call_tpu.pipeline.runner import run_caller
+    from bs_call_tpu.utils import NoGpuError
 
     try:
-        stats, table = run_caller(cfg, stats=stats, device=device)
+        stats, table = run_caller(cfg, stats=stats)
+    except NoGpuError as e:
+        # raised before any output is opened
+        print(f"bs_call: --device gpu: {e}", file=sys.stderr)
+        return 1
     except BrokenPipeError:
         # downstream consumer (e.g. `| head`) closed the pipe: exit
         # quietly like a SIGPIPE'd C tool; detach stdout so interpreter

@@ -36,11 +36,15 @@ def configure_jax():
     return jax
 
 
+class NoGpuError(RuntimeError):
+    """--device gpu on a machine where JAX sees no GPU."""
+
+
 def gpu_device():
-    """The first GPU that JAX sees. Raises RuntimeError when there is
+    """The first GPU that JAX sees. Raises NoGpuError when there is
     none."""
     jax = configure_jax()
     try:
         return jax.devices("gpu")[0]
     except RuntimeError as e:
-        raise RuntimeError(f"no GPU visible to JAX ({e})") from e
+        raise NoGpuError(f"no GPU visible to JAX ({e})") from e

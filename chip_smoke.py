@@ -19,13 +19,18 @@ Phases:
              the race picked
   f32        --no-exact --device gpu: within utils/vcfcmp.py's tolerance
   kernels    each device kernel at real widths (n_pos 32768+64, one
-             block's read batch, l_cap 256) against its host reference,
-             with compiled.memory_analysis()
+             block's read batch padded to its own r_pad and to 16384,
+             l_cap 256) against its host reference, with
+             compiled.memory_analysis()
   gpu-tests  the test suite's `gpu`-marked tests
 
-With --cards 4 it runs only the fused tier over the 4-GPU mesh
-(--device gpu, which engages the mesh when several GPUs are visible) and
-its host comparison.
+The forced-GPU runs also read the engine's -v counters and fail unless the
+fused tier carried every chunk (fused_chunks > 0, no fused_declined).
+
+With --cards 4 it runs only the 4-GPU mesh path and its host comparison:
+sharded_fused_ll_f64 at real widths against the host pileup and model,
+then the CLI with --device gpu (which engages the mesh when several GPUs
+are visible) against the host run.
 
 Every phase runs in a child process, one after another; this process never
 imports jax, so only one process at a time holds the cards. Any failure
@@ -42,6 +47,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = dict(n_contigs=4, ctg_len=2_500_000, n_reads=500_000, seed=1)
@@ -191,16 +198,32 @@ def _trace_lines(stderr, *prefixes):
     return [ln for ln in stderr.splitlines() if ln.startswith(prefixes)]
 
 
+def _check_fused(label, stderr):
+    """The engine's -v counters: the fused tier must have carried every
+    chunk of a forced-GPU run (a declined chunk runs the column kernel,
+    which gives the same bytes, so byte equality alone cannot tell)."""
+    counts = {}
+    for ln in stderr.splitlines():
+        f = ln.split()
+        if len(f) >= 2 and f[0].startswith("fused_") and f[1].isdigit():
+            counts[f[0]] = int(f[1])
+    for ln in _trace_lines(stderr, "fused tier:"):
+        print(f"[{label}] {ln}")
+    print(f"[{label}] counters {counts}")
+    if counts.get("fused_chunks", 0) == 0 or counts.get("fused_declined"):
+        raise Failed(f"{label}: the fused tier did not carry every chunk")
+
+
 def one_card(out):
     fx = _fixture()
     _host_runs(fx, out)
     r = _cli("gpu-exact-vcf", fx, f"{out}/gpu.vcf", "--device", "gpu",
              "-v", report=f"{out}/gpu.json")
-    for ln in _trace_lines(r.stderr, "fused tier:"):
-        print(f"[gpu-exact-vcf] {ln}")
+    _check_fused("gpu-exact-vcf", r.stderr)
     _check_exact("gpu-exact", out, "gpu")
-    _cli("gpu-exact-bcf", fx, f"{out}/gpu.bcf", "--device", "gpu",
-         "-O", "b")
+    r = _cli("gpu-exact-bcf", fx, f"{out}/gpu.bcf", "--device", "gpu",
+             "-O", "b", "-v")
+    _check_fused("gpu-exact-bcf", r.stderr)
     _same("gpu-exact BCF (decompressed)", _read(f"{out}/gpu.bcf", True),
           _read(f"{out}/host.bcf", True))
     r = _cli("auto", fx, f"{out}/auto.vcf", "--device", "auto", "-v",
@@ -237,13 +260,14 @@ def one_card(out):
 
 def four_cards(out):
     fx = _fixture()
+    r = _child("mesh-kernels", fx["dir"], timeout=900)
+    print(r.stdout.rstrip())
     _host_runs(fx, out, bcf=False)
     r = _cli("mesh-exact-vcf", fx, f"{out}/mesh.vcf", "--device", "gpu",
              "-v", report=f"{out}/mesh.json")
-    tier = _trace_lines(r.stderr, "fused tier:")
-    for ln in tier:
-        print(f"[mesh-exact-vcf] {ln}")
-    if not any(" 4 gpu device(s)" in ln for ln in tier):
+    _check_fused("mesh-exact-vcf", r.stderr)
+    if not any(" 4 gpu device(s)" in ln
+               for ln in _trace_lines(r.stderr, "fused tier:")):
         raise Failed("mesh-exact-vcf: the 4-GPU mesh never engaged")
     _check_exact("mesh-exact", out, "mesh")
 
@@ -302,7 +326,7 @@ def child_fixture(d):
     os.makedirs(d, exist_ok=True)
     _ref, _bam, n = make_wgbs_fixture(
         d, FIXTURE["n_reads"], FIXTURE["ctg_len"], seed=FIXTURE["seed"],
-        n_contigs=FIXTURE["n_contigs"], processes=FIXTURE["n_contigs"],
+        n_contigs=FIXTURE["n_contigs"],
     )
     make_dbsnp_index(
         os.path.join(d, "dbsnp.idx"),
@@ -321,7 +345,9 @@ def _compiled(fn, *args, **static):
     return c
 
 
-def _steady_ms(c, args, n=5):
+def _steady(c, args, n=20):
+    """Host-clock times of n warm calls, dispatch included (no trace):
+    prints min / median / max in ms."""
     import jax
 
     jax.block_until_ready(c(*args))
@@ -329,34 +355,46 @@ def _steady_ms(c, args, n=5):
     for _ in range(n):
         t0 = time.perf_counter()
         jax.block_until_ready(c(*args))
-        ts.append(time.perf_counter() - t0)
-    return 1e3 * sorted(ts)[n // 2]
+        ts.append(1e3 * (time.perf_counter() - t0))
+    ts.sort()
+    print(f"  steady ms over {n} warm calls (host clock, dispatch "
+          f"included): min {ts[0]:.3f}, median {ts[n // 2]:.3f}, "
+          f"max {ts[-1]:.3f}")
 
 
-def child_kernels(d):
-    import numpy as np
+class _Checks:
+    def __init__(self):
+        self.fails = []
 
-    from bs_call_tpu.utils import configure_jax
+    def __call__(self, name, ok, detail):
+        print(f"  {name}: {'ok' if ok else 'FAIL'} ({detail})")
+        if not ok:
+            self.fails.append(name)
 
-    jax = configure_jax()
-    import jax.numpy as jnp
+    def rel(self, name, got, want, tol):
+        """gt_prob: relative to the value, absolute below magnitude 1."""
+        err = (np.abs(got - want) / (1 + np.abs(want))).max()
+        self(name, err <= tol, f"max rel err {err:.3g} <= {tol:g}")
 
+    def done(self, phase):
+        if self.fails:
+            raise SystemExit(f"{phase} failed: {self.fails}")
+        return 0
+
+
+def _kernel_inputs(d):
+    """The fixture's first block at the kernels' real widths: the host
+    pileup and aggregate, the block's read batch padded to its own r_pad
+    and to 16384, the reference codes and the NumPy f64 model's output.
+    Returns a dict."""
     from bs_call_tpu.config import CallerConfig
     from bs_call_tpu.io.fasta import FastaIndex, sequence_window
     from bs_call_tpu.native.pipeline import NativePipeline
-    from bs_call_tpu.ops.genotype import ModelParams, call_genotypes
+    from bs_call_tpu.ops.genotype import ModelParams
     from bs_call_tpu.ops.genotype_np import call_genotypes_np
-    from bs_call_tpu.ops.kernels.pileup_device import (
-        device_pileup,
-        fused_ll_f64,
-        pad_read_batch,
-    )
+    from bs_call_tpu.ops.kernels.pileup_device import pad_read_batch
 
-    dev = jax.devices()[0]
-    if dev.platform != "gpu":
-        raise SystemExit(f"kernels: no GPU (found {dev.platform})")
     cfg = CallerConfig().sanitize()
-    params = ModelParams(cfg.under_conv, cfg.over_conv, cfg.ref_bias)
     p = NativePipeline(
         os.path.join(d, "in.bam"), cfg,
         np.ones(FIXTURE["n_contigs"], np.int8),
@@ -370,76 +408,135 @@ def child_kernels(d):
     r_pad = 1024
     while r_pad < n_rows:
         r_pad *= 2
-    padded = pad_read_batch(reads, 0, sz - 1, r_pad, L_CAP)
     pseq = FastaIndex(os.path.join(d, "ref.fa")).load_contig("chr1")
     ref = np.zeros(N_POS, np.int32)
     ref[:sz] = sequence_window(pseq, blk["x"], sz)
-    print(f"kernels: n_pos {N_POS}, window {sz}, reads {n_rows} "
-          f"(r_pad {r_pad}), l_cap {L_CAP}, on {dev.device_kind}")
-    fails = []
-
-    def check(name, ok, detail):
-        print(f"  {name}: {'ok' if ok else 'FAIL'} ({detail})")
-        if not ok:
-            fails.append(name)
-
-    # 1. pileup scatter-add against the host C++ pileup
-    print("device_pileup")
-    dargs = jax.device_put(padded, dev)
-    c = _compiled(device_pileup, *dargs, n_pos=N_POS,
-                  min_qual=cfg.min_qual)
-    c2, qs, m2 = (np.asarray(a)[:sz] for a in c(*dargs))
-    check("counts2", np.array_equal(c2, blk["counts2"][:sz]), "exact")
-    check("qual_sum", np.array_equal(qs, blk["qual_sum"][:sz]), "exact")
-    small = blk["mapq2_sum"][:sz] < 2**24
-    check("mapq2_sum", np.array_equal(m2[small], blk["mapq2_sum"][:sz][
-        small]), f"exact below 2^24 ({int((~small).sum())} rows above)")
-    print(f"  steady {_steady_ms(c, dargs):.3f} ms")
-
-    # 2./3. the genotype model in f64 and f32 against the NumPy f64 twin
     counts = np.zeros((N_POS, 8), np.int32)
     quals = np.zeros((N_POS, 8), np.int32)
     counts[:sz] = blk["agg"]["counts"][:sz]
     quals[:sz] = blk["agg"]["quals"][:sz]
-    cov = counts.sum(axis=1) > 0
-    want_gp, want_gt, want_m, _ = call_genotypes_np(
+    gp, gt, m, _ = call_genotypes_np(
         counts, quals, ref, cfg.under_conv, cfg.over_conv, cfg.ref_bias
     )
-    margs = jax.device_put((counts, quals, ref), dev)
+    print(f"n_pos {N_POS}, window {sz}, reads {n_rows}, l_cap {L_CAP}")
+    return dict(
+        cfg=cfg, blk=blk, sz=sz, ref=ref, counts=counts, quals=quals,
+        params=ModelParams(cfg.under_conv, cfg.over_conv, cfg.ref_bias),
+        padded={
+            rp: pad_read_batch(reads, 0, sz - 1, rp, L_CAP)
+            for rp in sorted({r_pad, 16384})
+        },
+        cov=counts.sum(axis=1) > 0, want_gp=gp, want_gt=gt, want_m=m,
+    )
+
+
+def _check_fused_out(check, k, out, tag):
+    """Fused-tier outputs (gt_prob, max_gt, margin, off, quals_u8)
+    against the host aggregate and the NumPy f64 model."""
+    gp, gt, _m, _o, q8 = (np.asarray(a) for a in out)
+    sz, cov = k["sz"], k["cov"]
+    check(f"{tag} quals", np.array_equal(q8[:sz], k["quals"][:sz]),
+          "exact")
+    check.rel(f"{tag} gt_prob", gp[cov], k["want_gp"][cov], 1e-12)
+    clear = cov & (k["want_m"] > 1e-9)
+    check(f"{tag} max_gt", np.array_equal(gt[clear], k["want_gt"][clear]),
+          f"{int(clear.sum())} rows with a clear winner")
+
+
+def child_kernels(d):
+    from bs_call_tpu.utils import configure_jax
+
+    jax = configure_jax()
+    import jax.numpy as jnp
+
+    from bs_call_tpu.ops.genotype import call_genotypes
+    from bs_call_tpu.ops.kernels.pileup_device import (
+        device_pileup,
+        fused_ll_f64,
+    )
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"kernels: no GPU (found {dev.platform})")
+    print(f"kernels on {dev.device_kind}:", end=" ")
+    k = _kernel_inputs(d)
+    cfg, blk, sz, cov = k["cfg"], k["blk"], k["sz"], k["cov"]
+    check = _Checks()
+
+    for r_pad, padded in k["padded"].items():
+        # 1. pileup scatter-add against the host C++ pileup
+        print(f"device_pileup, r_pad {r_pad}")
+        dargs = jax.device_put(padded, dev)
+        c = _compiled(device_pileup, *dargs, n_pos=N_POS,
+                      min_qual=cfg.min_qual)
+        c2, qs, m2 = (np.asarray(a)[:sz] for a in c(*dargs))
+        check("counts2", np.array_equal(c2, blk["counts2"][:sz]), "exact")
+        check("qual_sum", np.array_equal(qs, blk["qual_sum"][:sz]),
+              "exact")
+        small = blk["mapq2_sum"][:sz] < 2**24
+        check("mapq2_sum", np.array_equal(
+            m2[small], blk["mapq2_sum"][:sz][small]
+        ), f"exact below 2^24 ({int((~small).sum())} rows above)")
+        _steady(c, dargs)
+
+        # 2. the fused tier (pileup + aggregation + f64 model)
+        fargs = jax.device_put((*padded, k["ref"]), dev)
+        print(f"fused_ll_f64, r_pad {r_pad}")
+        c = _compiled(fused_ll_f64, *fargs, n_pos=N_POS,
+                      min_qual=cfg.min_qual, params=k["params"])
+        _check_fused_out(check, k, c(*fargs), "fused")
+        _steady(c, fargs)
+
+    # 3. the genotype model in f64 and f32 against the NumPy f64 twin
+    margs = jax.device_put((k["counts"], k["quals"], k["ref"]), dev)
     for dtype, tol in ((jnp.float64, 1e-12), (jnp.float32, 1e-4)):
         name = jnp.dtype(dtype).name
         print(f"call_genotypes {name}")
-        c = _compiled(call_genotypes, *margs, params=params, dtype=dtype)
+        c = _compiled(call_genotypes, *margs, params=k["params"],
+                      dtype=dtype)
         gp, gt, _m, _o = (np.asarray(a) for a in c(*margs))
-        # relative to the value, absolute below magnitude 1
-        err = np.abs(gp[cov] - want_gp[cov]) / (1 + np.abs(want_gp[cov]))
-        check(f"gt_prob {name}", err.max() <= tol,
-              f"max rel err {err.max():.3g} <= {tol:g}")
-        clear = cov & (want_m > (1e-9 if tol < 1e-6 else 1e-3))
-        check(f"max_gt {name}", np.array_equal(gt[clear], want_gt[clear]),
+        check.rel(f"gt_prob {name}", gp[cov], k["want_gp"][cov], tol)
+        clear = cov & (k["want_m"] > (1e-9 if tol < 1e-6 else 1e-3))
+        check(f"max_gt {name}",
+              np.array_equal(gt[clear], k["want_gt"][clear]),
               f"{int(clear.sum())} rows with a clear winner")
-        print(f"  steady {_steady_ms(c, margs):.3f} ms")
+        _steady(c, margs)
+    return check.done("kernels")
 
-    # 4. the fused tier (pileup + model) against the two steps above
-    fargs = jax.device_put((*padded, ref), dev)
-    print("fused_ll_f64")
-    c = _compiled(fused_ll_f64, *fargs, n_pos=N_POS, min_qual=cfg.min_qual,
-                  params=params)
-    gp, gt, _m, _o, q8 = (np.asarray(a) for a in c(*fargs))
-    check("fused quals", np.array_equal(q8[:sz], quals[:sz]), "exact")
-    err = np.abs(gp[cov] - want_gp[cov]) / (1 + np.abs(want_gp[cov]))
-    check("fused gt_prob", err.max() <= 1e-12,
-          f"max rel err {err.max():.3g} <= 1e-12")
-    print(f"  steady {_steady_ms(c, fargs):.3f} ms")
-    if fails:
-        raise SystemExit(f"kernels failed: {fails}")
-    return 0
+
+def child_mesh_kernels(d):
+    """sharded_fused_ll_f64 over a 4-GPU mesh (reads data-parallel, psum
+    of the pileup) against the host pileup and the NumPy f64 model."""
+    from bs_call_tpu.utils import configure_jax
+
+    jax = configure_jax()
+    from jax.sharding import Mesh
+
+    from bs_call_tpu.ops.kernels.pileup_device import sharded_fused_ll_f64
+    from bs_call_tpu.parallel.sharding import shard_positions
+
+    devs = jax.devices()
+    if devs[0].platform != "gpu" or len(devs) < 4:
+        raise SystemExit(f"mesh-kernels: needs 4 GPUs (found {devs})")
+    print(f"mesh kernels on 4 x {devs[0].device_kind}:", end=" ")
+    k = _kernel_inputs(d)
+    mesh = Mesh(np.array(devs[:4]), ("pos",))
+    fn = sharded_fused_ll_f64(mesh, k["params"], N_POS, k["cfg"].min_qual)
+    check = _Checks()
+    for r_pad, padded in k["padded"].items():
+        print(f"sharded_fused_ll_f64, 4 devices, r_pad {r_pad}")
+        args = shard_positions(mesh, *padded, k["ref"])
+        c = _compiled(fn, *args)
+        _check_fused_out(check, k, c(*args), "mesh fused")
+        _steady(c, args)
+    return check.done("mesh-kernels")
 
 
 CHILDREN = {
     "devices": child_devices,
     "fixture": child_fixture,
     "kernels": child_kernels,
+    "mesh-kernels": child_mesh_kernels,
 }
 
 

@@ -17,6 +17,7 @@ from bs_call_tpu.config import CallerConfig
 from bs_call_tpu.native import load
 from bs_call_tpu.pipeline.engine import CallEngine
 from bs_call_tpu.pipeline.runner import run_caller
+from bs_call_tpu.utils import NoGpuError
 
 from test_native_pipeline import random_bam
 
@@ -40,7 +41,7 @@ def test_device_gpu_without_gpu_exits_nonzero(tmp_path, capsys):
     assert rc != 0
     assert "--device gpu" in capsys.readouterr().err
     assert not out.exists()
-    with pytest.raises(RuntimeError):
+    with pytest.raises(NoGpuError):
         CallEngine(CallerConfig(device="gpu"))
 
 

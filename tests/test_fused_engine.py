@@ -61,6 +61,16 @@ def _run(bam, ref, device, **kw):
     return buf.getvalue()
 
 
+def _first_block(bam, cfg):
+    from bs_call_tpu.native.pipeline import NativePipeline
+
+    p = NativePipeline(str(bam), cfg, np.ones(1, np.int8))
+    blk = p.next_block()
+    reads = p.block_reads()
+    p.close()
+    return blk, reads
+
+
 @pytest.mark.parametrize("seed", [3, 11])
 def test_fused_mesh_byte_identity(tmp_path, spy_engine, seed):
     """device=gpu (forced fused) over the 8-device mesh must reproduce
@@ -90,13 +100,8 @@ def test_quals_mismatch_rescues_to_oracle(tmp_path):
     f32-boundary safety net): perturb the host quals and check the
     fused result equals the host engines on the perturbed values."""
     ref, bam = random_bam(tmp_path, n_pairs=400, seed=5)
-    from bs_call_tpu.native.pipeline import NativePipeline
-
     cfg = CallerConfig(device="gpu", batch_positions=1 << 12)
-    p = NativePipeline(str(bam), cfg, np.ones(1, np.int8))
-    blk = p.next_block()
-    reads = p.block_reads()
-    p.close()
+    blk, reads = _first_block(bam, cfg)
     sz = blk["y"] - blk["x"] + 1
     agg = blk["agg"]
     covered = np.nonzero(agg["n"] > 0)[0]
@@ -109,7 +114,7 @@ def test_quals_mismatch_rescues_to_oracle(tmp_path):
 
     eng = CallEngine(cfg, device=CPU)
     res = eng._call_fused(reads, 0, sz - 1, ref_codes, agg, covered)
-    assert res is not None
+    assert res is not None and res[4] == 1  # one row left to the oracle
     gt_prob, max_gt, margin, off = eng._finish_exact(
         *res[:4],
         agg["counts"][covered].astype(np.int32),
@@ -128,17 +133,49 @@ def test_quals_mismatch_rescues_to_oracle(tmp_path):
     np.testing.assert_allclose(gt_prob[jj], want_prob, rtol=0, atol=0)
 
 
+def test_systematic_divergence_raises(tmp_path):
+    """Device quals that differ from the host aggregate on more than 1%
+    of a chunk's rows are a device fault: the fused tier raises instead
+    of handing the chunk to another engine."""
+    ref, bam = random_bam(tmp_path, n_pairs=400, seed=5)
+    cfg = CallerConfig(device="gpu", batch_positions=1 << 12)
+    blk, reads = _first_block(bam, cfg)
+    sz = blk["y"] - blk["x"] + 1
+    agg = blk["agg"]
+    covered = np.nonzero(agg["n"] > 0)[0]
+    assert len(covered) > 100
+    agg["quals"][covered, :] += 1
+    eng = CallEngine(cfg, device=CPU)
+    with pytest.raises(RuntimeError, match="device quals differ"):
+        eng._call_fused(reads, 0, sz - 1, np.ones(sz, np.int32), agg,
+                        covered)
+
+
+def test_fused_counters(tmp_path):
+    """-v counters: a forced device run counts the chunks the fused tier
+    carried, none declined and no rescued row on a clean run."""
+    from bs_call_tpu.utils.trace import Tracer
+
+    ref, bam = random_bam(tmp_path, n_pairs=1500, seed=13)
+    cfg = CallerConfig(
+        input_file=str(bam), reference_file=str(ref), benchmark_mode=True,
+        device="gpu", batch_positions=1 << 12, use_mesh=False,
+    )
+    tracer = Tracer()
+    run_caller(cfg, out_fileobj=io.BytesIO(), tracer=tracer, device=CPU)
+    assert tracer.counts["fused_chunks"] > 0
+    assert tracer.counts["fused_rescued"] == 0
+    assert "fused_declined" not in tracer.counts
+
+
 def test_fused_declines_oversize_reads(tmp_path):
     """Reads longer than the fused L cap must fall back (None), not
-    truncate."""
-    ref, bam = random_bam(tmp_path, n_pairs=50, seed=1)
-    from bs_call_tpu.native.pipeline import NativePipeline
+    truncate; the engine counts the declined chunk."""
+    from bs_call_tpu.utils.trace import Tracer
 
+    ref, bam = random_bam(tmp_path, n_pairs=50, seed=1)
     cfg = CallerConfig(device="gpu", batch_positions=1 << 12)
-    p = NativePipeline(str(bam), cfg, np.ones(1, np.int8))
-    blk = p.next_block()
-    reads = p.block_reads()
-    p.close()
+    blk, reads = _first_block(bam, cfg)
     sz = blk["y"] - blk["x"] + 1
     covered = np.nonzero(blk["agg"]["n"] > 0)[0]
     wide = {
@@ -152,6 +189,11 @@ def test_fused_declines_oversize_reads(tmp_path):
         eng._call_fused(wide, 0, sz - 1, ref_codes, blk["agg"], covered)
         is None
     )
+    eng.tracer = Tracer()
+    eng.call_block_soa(blk["counts2"], blk["qual_sum"], blk["mapq2_sum"],
+                       ref_codes, agg=blk["agg"], reads=(wide, 0))
+    assert eng.tracer.counts["fused_declined"] == 1
+    assert "fused_chunks" not in eng.tracer.counts
 
 
 def test_auto_gate_waits_for_race(tmp_path):
